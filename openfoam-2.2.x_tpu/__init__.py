@@ -1,7 +1,7 @@
-"""foamtpu — a TPU-native unstructured finite-volume CFD framework.
+"""foamtpu — an unstructured finite-volume CFD framework on JAX/XLA.
 
 A from-scratch rebuild of the capabilities of OpenFOAM-2.2.x
-(reference: /root/reference, see SURVEY.md) designed TPU-first:
+(see SURVEY.md) designed for accelerators:
 
 - Mesh and fields are struct-of-arrays jnp pytrees (no class web).
 - fvm/fvc operator algebra assembles LDU-addressed sparse systems
@@ -9,11 +9,11 @@ A from-scratch rebuild of the capabilities of OpenFOAM-2.2.x
 - All hot paths are gather-based (cell->face adjacency tables) rather
   than scatter-based, jitted end-to-end by XLA.
 - Parallelism is GSPMD/shard_map over a jax device Mesh with ppermute
-  halo exchange — the TPU equivalent of the reference's MPI domain
+  halo exchange — the accelerator equivalent of the reference's MPI domain
   decomposition (reference: src/Pstream/mpi/).
 
 Import as ``import foamtpu`` (the ``foamtpu`` symlink points at the
-``openfoam-2.2.x_tpu`` source directory).
+source directory).
 """
 
 __version__ = "0.1.0"

@@ -167,7 +167,7 @@ _ALIASES = {
 def _coded_value(spec: FoamDict, patch, rank: int, dtype, mesh):
     """codedFixedValue / dynamicCode analogue (reference:
     src/OpenFOAM/db/dynamicLibrary/codedBase + codedFixedValue BC).
-    The reference compiles a C++ snippet at run time; the TPU rebuild
+    The reference compiles a C++ snippet at run time; this rebuild
     executes a PYTHON snippet from the `code` entry with the namespace
       np, jnp, Cf [n,3] face centres, normal [n,3] outward unit
       normals, t (start time) — and takes `value` as the result.

@@ -16,7 +16,7 @@ from which ALL matrix coefficients follow:
 so each BC kind only supplies value_coeffs(); gradient coefficients and
 evaluation are derived. Derived physics BCs (inletOutlet, totalPressure,
 wall functions, ...) become update() rules that recompute the triple
-from solver state each step — the TPU-native replacement for virtual
+from solver state each step — the whole-array replacement for virtual
 updateCoeffs().
 
 All functions are jit-traceable; `kind` is static so dispatch costs

@@ -136,6 +136,7 @@ class Case:
         m = self.mesh
         self._mesh = gspmd.shard_pytree(m, jmesh, m.n_cells, m.n_faces)
         self.jmesh = jmesh
+        gspmd.arm_halo(jmesh)
         from ..utils import logging as log
 
         log.info(f"Parallel: GSPMD sharding over {n} device(s)\n")
@@ -179,7 +180,7 @@ class Case:
         solvers = self.fv_solution.subdict("solvers")
         d = dict(solvers.match(field_name))
         d = {str(k): v for k, v in d.items()}
-        # DIC/DILU/GaussSeidel are sequential: map to TPU-parallel
+        # DIC/DILU/GaussSeidel are sequential: map to parallel
         # equivalents (documented deviation, SURVEY.md §7 decision 4)
         if str(d.get("preconditioner", "")) in ("DIC", "FDIC", "DILU"):
             d["preconditioner"] = "diagonal"
@@ -187,24 +188,23 @@ class Case:
             from ..solvers.linear.gamg import GAMG
 
             # honour the fvSolution smoother/sweep menu: Chebyshev is
-            # the TPU-parallel stand-in for (sym)GaussSeidel
+            # the parallel stand-in for (sym)GaussSeidel
             # (documented deviation, SURVEY.md §7 decision 4);
             # FOAMTPU_GAMG_SMOOTHER overrides for experiments
             import os as _os
 
             sm = str(d.get("smoother", "Jacobi"))
             # GaussSeidel family -> damped Jacobi (the established
-            # TPU-parallel stand-in; Chebyshev remains opt-in via the
+            # parallel stand-in; Chebyshev remains opt-in via the
             # explicit keyword — measured no faster and it perturbs
             # fixed-iteration-count trajectories)
             sm = {"GaussSeidel": "Jacobi", "symGaussSeidel": "Jacobi",
                   "DIC": "Jacobi",
                   "DICGaussSeidel": "Jacobi"}.get(sm, sm)
             sm = _os.environ.get("FOAMTPU_GAMG_SMOOTHER", sm)
-            # sweep-count defaults 4+4 (not the reference's 0+2):
-            # smoothing is nearly free on TPU and the stride-2 cycle
-            # leans on it (see GAMG.__init__); explicit fvSolution
-            # entries still win
+            # sweep-count defaults 4+4 (not the reference's 0+2): the
+            # stride-2 cycle leans on smoothing (see GAMG.__init__);
+            # explicit fvSolution entries still win
             d["_gamg"] = GAMG(
                 self.mesh, smoother=sm,
                 n_pre=int(d.get("nPreSweeps", 4)),
@@ -305,7 +305,35 @@ def run_case(case_dir: str, max_steps: Optional[int] = None,
         raise ValueError(
             f"unknown application {app!r}; available: {sorted(_APPLICATIONS)}"
         )
+    from ..utils import logging as log
+
+    log.info(f"Device: {device_banner()}\n")
     if parallel:
         case.request_parallel()
     _APPLICATIONS[app](case, max_steps=max_steps)
+    if parallel:
+        log.info(f"Parallel: {sharding_report(case)}\n")
     return case
+
+
+def device_banner() -> str:
+    """'<platform> <device kind> x<count>' of the devices JAX runs on,
+    printed in every solver log so a CPU fallback cannot go unseen."""
+    import jax
+
+    devs = jax.devices()
+    return f"{devs[0].platform} {devs[0].device_kind} x{len(devs)}"
+
+
+def sharding_report(case: Case) -> str:
+    """Devices that actually hold the final U of a `-parallel` run, and
+    the halo path its solves traced."""
+    from ..parallel import gspmd
+
+    state = getattr(case, "final_state", None) or {}
+    U = state.get("U")
+    data = getattr(U, "data", None)
+    n = len(data.sharding.device_set) if data is not None else 0
+    halo = "explicit" if gspmd.active_halo_mesh()[0] is not None \
+        else "gspmd"
+    return f"final U on {n} device(s), halo {halo}"

@@ -483,8 +483,8 @@ def dimensioned_vector(v: Any) -> Tuple[DimensionSet, np.ndarray]:
 
 _HEADER = """/*--------------------------------*- C++ -*----------------------------------*\\
 | =========                 |                                                 |
-| \\\\      /  F ield         | foamtpu: TPU-native finite-volume framework     |
-|  \\\\    /   O peration     | Version:  2.2.x-tpu                             |
+| \\\\      /  F ield         | foamtpu: finite-volume framework on JAX/XLA     |
+|  \\\\    /   O peration     | Version:  2.2.x                                 |
 |   \\\\  /    A nd           |                                                 |
 |    \\\\/     M anipulation  |                                                 |
 \\*---------------------------------------------------------------------------*/

@@ -1,6 +1,6 @@
 """Runtime SI dimension checking.
 
-TPU-native equivalent of the reference's 7-exponent dimension system
+Whole-array equivalent of the reference's 7-exponent dimension system
 (reference: src/OpenFOAM/dimensionSet/dimensionSet.H — the exponents are
 [mass length time temperature moles current luminousIntensity]).
 

@@ -1,6 +1,6 @@
 """Geometric (vol/surface) fields as jnp pytrees.
 
-TPU-native equivalent of the reference's GeometricField
+Whole-array equivalent of the reference's GeometricField
 (reference: src/OpenFOAM/fields/GeometricFields/GeometricField/):
 internal cell values + per-patch boundary conditions + SI dimensions.
 The registry (objectRegistry) collapses to plain dicts of fields held in
@@ -75,7 +75,7 @@ class VolField:
 @dataclasses.dataclass(frozen=True)
 class SurfaceField:
     """Face field: values [nF] or [nF,3] — covers internal and boundary
-    faces in one flat array (the TPU layout choice; the reference splits
+    faces in one flat array (the layout choice; the reference splits
     boundary values per patch)."""
 
     data: Any

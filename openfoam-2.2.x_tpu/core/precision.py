@@ -1,15 +1,26 @@
 """Precision policy.
 
-Reference is float64 everywhere (scalar = double,
-reference: src/OpenFOAM/primitives/Scalar/). TPU f64 is emulated and
-slow, so the default device dtype is float32 with care taken in
-reductions; set FOAMTPU_X64=1 (and jax_enable_x64) for f64 verification
-runs on CPU. Host-side geometry precompute is always float64.
+The reference is float64 everywhere (scalar = double, reference:
+src/OpenFOAM/primitives/Scalar/). The device default here is float32:
+every hot kernel (stencil SpMV, face interpolation, Krylov vector
+updates) is bound by memory bandwidth, and f32 moves half the bytes of
+f64, with care taken in reductions. f64 is native on the GPU; set
+FOAMTPU_X64=1 (and jax_enable_x64) for f64 runs, which are the
+verification reference. Host-side geometry precompute is always f64.
+
+f32 contractions (the GAMG coarsest-level inverse applied as a
+matrix-vector product, gradient and scheme einsums) run at full f32
+precision: a GPU may otherwise execute them in TF32, which keeps about
+three decimal digits and would degrade every V-cycle. None of them is
+large enough for tensor cores to pay, so nothing is lost.
 """
 
 import os
 
+import jax
 import numpy as np
+
+jax.config.update("jax_default_matmul_precision", "highest")
 
 
 def x64_enabled() -> bool:
@@ -36,8 +47,6 @@ def install_fpe_trap() -> bool:
     a traceback instead of silently poisoning the run."""
     if os.environ.get("FOAMTPU_SIGFPE", "0") in ("0", "", "false"):
         return False
-    import jax
-
     jax.config.update("jax_debug_nans", True)
     return True
 

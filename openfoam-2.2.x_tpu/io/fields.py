@@ -168,7 +168,7 @@ def read_field(path: str, mesh, name: Optional[str] = None) -> VolField:
 
 
 _HEADER = """/*--------------------------------*- C++ -*----------------------------------*\\
-| foamtpu: TPU-native finite-volume framework | Version: 2.2.x-tpu            |
+| foamtpu: finite-volume framework on JAX/XLA | Version: 2.2.x                |
 \\*---------------------------------------------------------------------------*/
 FoamFile
 {{

@@ -25,12 +25,12 @@ def _cell_point_ids(poly) -> List[np.ndarray]:
 
 def case_to_vtk(case_dir: str, time_name: Optional[str] = None) -> str:
     from ..core.case import Case
-    from ..core import runtime
 
     case = Case(case_dir)
     poly = case.poly_mesh
     mesh = case.mesh
-    t = time_name or (runtime.time_name(case.time.latest_time() or 0.0))
+    # the latest directory as the solver named it (timePrecision digits)
+    t = time_name or case.latest_time_name()
 
     out_dir = os.path.join(case_dir, "VTK")
     os.makedirs(out_dir, exist_ok=True)

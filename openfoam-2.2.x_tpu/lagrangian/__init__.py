@@ -4,7 +4,7 @@ Rebuild of reference: src/lagrangian/{basic,intermediate}/ (Cloud,
 particle::trackToFace, KinematicParcel with sphereDrag + gravity) and
 applications/solvers/lagrangian/icoUncoupledKinematicParcelFoam/.
 
-TPU redesign — the reference tracks each particle with a sequential
+Redesign — the reference tracks each particle with a sequential
 face-to-face walk (particle.C: trackToFace loop); here the SAME
 geometric walk runs data-parallel over the whole cloud:
 

@@ -5,7 +5,7 @@ BinaryCollisionModel/VariableHardSphere, WallInteractionModel/
 {SpecularReflection,MaxwellianThermal}) and
 applications/solvers/discreteMethods/dsmc/dsmcFoam/.
 
-TPU redesign — the reference's per-cell occupancy lists and sequential
+Redesign — the reference's per-cell occupancy lists and sequential
 collision loops become flat, fixed-shape array programs:
 
 - The cloud is the same fixed-slot struct-of-arrays layout as the

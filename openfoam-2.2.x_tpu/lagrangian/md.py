@@ -6,7 +6,7 @@ integration in mdFoam's move/calculateForce split) and
 applications/solvers/discreteMethods/molecularDynamics/
 {mdFoam,mdEquilibrationFoam}/.
 
-TPU redesign — the reference builds cell-interaction lists
+Redesign — the reference builds cell-interaction lists
 (interactionLists/) to find neighbour pairs; at the molecule counts a
 single chip holds (10^3-10^5), the all-pairs force matrix is a SINGLE
 dense [N,N] batched computation that XLA fuses into a few kernels —

@@ -8,7 +8,7 @@ Rebuild of reference: src/lagrangian/intermediate/submodels/
 solvers applications/solvers/lagrangian/{reactingParcelFoam,
 coalChemistryFoam,sprayFoam}.
 
-TPU design: the extra physics are ELEMENTWISE updates on the same
+Design: the extra physics are ELEMENTWISE updates on the same
 fixed-slot struct-of-arrays cloud (no new tracking machinery):
 
 - Evaporation (d^2-law with Ranz-Marshall Sherwood correction):

@@ -1,6 +1,6 @@
 """blockMesh: structured hex block mesh generation from blockMeshDict.
 
-TPU-native rebuild of the reference's block mesher (reference:
+Whole-array rebuild of the reference's block mesher (reference:
 src/mesh/blockMesh/, applications/utilities/mesh/generation/blockMesh/).
 Host-side NumPy; produces a PolyMesh in canonical OpenFOAM face order
 (internal faces upper-triangular by owner/neighbour, then boundary faces

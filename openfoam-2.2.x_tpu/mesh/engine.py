@@ -5,7 +5,7 @@ degrees, rpm/conRodLength/stroke/clearance from constant/
 engineGeometry; enginePiston/layerAR mesh motion) and the solvers
 applications/solvers/combustion/{engineFoam,coldEngineFoam}/.
 
-TPU redesign — the reference moves the piston by adding/removing cell
+Redesign — the reference moves the piston by adding/removing cell
 layers (topology change). Here the cylinder mesh KEEPS its topology
 and the points between the piston crown and the head are stretched
 linearly (the same static-topology ALE treatment as

@@ -6,7 +6,7 @@ linearMotion / oscillatingLinearMotion / rotatingMotion) and the
 mesh-flux (meshPhi) machinery of moving-mesh solvers
 (pimpleDyMFoam).
 
-TPU redesign: mesh TOPOLOGY is static (the jit program, slot tables
+Redesign: mesh TOPOLOGY is static (the jit program, slot tables
 and stencil offsets never change); mesh GEOMETRY (points -> face
 centres/areas -> cell centres/volumes -> interpolation factors ->
 slot-geometry) is recomputed ON DEVICE each motion step by the same

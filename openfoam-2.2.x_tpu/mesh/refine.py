@@ -5,7 +5,7 @@ Rebuild of reference: src/dynamicFvMesh/dynamicRefineFvMesh/ (hex
 quiescent sibling groups, conservative field mapping) on top of the
 snappy octree machinery (mesh/snappy.py::octree_mesh).
 
-TPU redesign — the reference mutates topology in place
+Redesign — the reference mutates topology in place
 (polyTopoChange) every refineInterval steps. Under XLA, topology is
 baked into the compiled program, so adaptation happens HOST-SIDE
 between jitted chunks: the solver runs `refineInterval` steps as one

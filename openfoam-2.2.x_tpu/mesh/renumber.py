@@ -1,7 +1,7 @@
 """Mesh renumbering for bandwidth/locality.
 
 Reference: src/renumber/ (renumberMethod, CuthillMcKeeRenumber) +
-applications/utilities/mesh/manipulation/renumberMesh/. On TPU,
+applications/utilities/mesh/manipulation/renumberMesh/. On an accelerator,
 renumbering is what makes the offset-stencil SpMV possible: a
 low-bandwidth ordering turns almost all neighbour hops into a few
 constant index offsets (mesh/core.py::offset_stencil). blockMesh output

@@ -6,7 +6,7 @@ src/engine/engineMesh/layeredEngineMesh + polyTopoChange/
 polyTopoChanger/layerAdditionRemoval) on meshes that are prismatic
 stacks of cell layers along one axis.
 
-TPU redesign: inside a jitted chunk the topology is STATIC (XLA needs
+Redesign: inside a jitted chunk the topology is STATIC (XLA needs
 static shapes); a topology event happens on the HOST between chunks —
 the mesh is re-extruded with one plane inserted/removed, cell fields
 are remapped through an exact conservative 1-D overlap matrix (the

@@ -1,7 +1,7 @@
 """Wall distance.
 
 Reference: src/meshTools/cellDist/ (wallDist via MeshWave — a parallel
-wavefront propagation). TPU build computes the geometric distance from
+wavefront propagation). This build computes the geometric distance from
 every cell centre to the nearest wall-face centre host-side with a
 KD-tree (exact for the near-wall cells that matter to turbulence
 models; MeshWave itself is a topological approximation)."""

@@ -5,7 +5,7 @@ src/OpenFOAM/algorithms/FaceCellWave/ (wallPoint data: squared
 distance + origin point, propagated cell->face->cell until no cell
 changes) — the engine behind `distanceMethod meshWave` wall distance.
 
-TPU redesign — the reference walks an explicit changed-faces stack
+Redesign — the reference walks an explicit changed-faces stack
 (inherently sequential). Here the wave advances as a JACOBI sweep: in
 one iteration EVERY cell consults all its neighbours' (origin, dist^2)
 through the slot roll tables and keeps the closest origin; a

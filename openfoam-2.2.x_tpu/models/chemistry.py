@@ -3,7 +3,7 @@
 Rebuild of reference: src/thermophysicalModels/chemistryModel/
 (chemistryModel::omega, solve — the stiff per-cell ODE integration of
 reaction sources) and src/combustionModels/infinitelyFastChemistry.
-TPU redesign: the reference loops cells and calls a sequential ODE
+Redesign: the reference loops cells and calls a sequential ODE
 solver per cell; here the WHOLE field of cell states integrates as one
 `jax.vmap` of the Rosenbrock solver (foamtpu.ode) — one fused device
 program, no per-cell host dispatch.

@@ -9,8 +9,8 @@ Rebuild of reference: src/combustionModels/
 plus chemistryModel::tc() (src/thermophysicalModels/chemistryModel/
 chemistryModel/chemistryModel.C) for the chemical time scale.
 
-TPU design: the closure is a pure function over whole fields — the
-kappa blending and the equilibrium increment are elementwise VPU work
+Design: the closure is a pure function over whole fields — the
+kappa blending and the equilibrium increment are elementwise work
 fused into the operator-split chemistry stage; only `laminar`/`PaSR`
 pay for the vmapped stiff Rosenbrock integration.
 """

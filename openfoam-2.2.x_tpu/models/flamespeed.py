@@ -13,7 +13,7 @@ Rebuild of reference: src/thermophysicalModels/laminarFlameSpeed/
         the equivalence ratio, interpolated across pressure intervals,
         with a temperature exponent polynomial per interval)
 
-TPU design: a correlation is a pure elementwise function Su(p, Tu)
+Design: a correlation is a pure elementwise function Su(p, Tu)
 over whole fields — closed over static fuel coefficients so it fuses
 into the XiFoam step; the RaviPetersen pressure-interval selection is
 a static-table jnp.searchsorted (no data-dependent control flow).

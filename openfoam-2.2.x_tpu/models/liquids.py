@@ -6,9 +6,9 @@ per-liquid coefficient sets) and src/thermophysicalModels/SLGThermo/
 (the thermo facade the lagrangian intermediate submodels query for
 pv/hl/cp/rho/mu/kappa/sigma of the carrier's liquid components).
 
-TPU design: a liquid is a frozen bundle of pure elementwise
+Design: a liquid is a frozen bundle of pure elementwise
 correlation closures over T — they fuse into the parcel update like
-any other VPU arithmetic; coefficients are static Python floats baked
+any other elementwise arithmetic; coefficients are static Python floats baked
 into the jaxpr. Built-in sets: H2O and C7H16 (n-heptane, the sprayFoam
 tutorial fuel) with DIPPR/NSRDS-form coefficients reproducing the
 standard handbook values (checked in tests/test_liquids.py:

@@ -121,7 +121,7 @@ class FvDOMConfig(NamedTuple):
 
     with the greyDiffusiveRadiation wall closure: incoming rays see the
     wall emission eps*sigma*Tw^4/pi (mixed BC, per-face switched on the
-    ray-normal sign); outgoing rays leave freely. TPU design: the ray
+    ray-normal sign); outgoing rays leave freely. Design: the ray
     loop unrolls inside one jitted step (each ray is a multi-diagonal
     upwind matrix solved by PBiCGStab); in-scatter is omitted (s only
     attenuates — documented deviation, reference default sigma_s = 0)."""
@@ -233,10 +233,10 @@ class ViewFactorModel(NamedTuple):
     """Grey diffuse surface-to-surface radiation between the faces of
     the enclosure patches.
 
-    TPU design: the reference assembles and solves the radiosity
+    Design: the reference assembles and solves the radiosity
     system with a dense LU on the master rank; here the view-factor
     matrix F [nF,nF] and the radiosity solve are dense device
-    matmuls/solves — exactly the MXU shape. View factors come from the
+    matmuls/solves — dense products, no scatters. View factors come from the
     per-face-pair double-area formula
         F_ij = max(cos t_i, 0) max(cos t_j, 0) A_j / (pi r^2)
     normalised so each row sums to the enclosure fraction (the

@@ -3,7 +3,7 @@
 Rebuild of reference: src/randomProcesses/ (Kmesh, turbGen, noise/
 UOprocess) + applications/utilities/preProcessing/boxTurb (writes a
 divergence-free random initial U with a prescribed energy spectrum
-into a periodic box). TPU redesign: the whole generator is jnp FFT
+into a periodic box). Redesign: the whole generator is jnp FFT
 work — build the spectral velocity field on the structured k-mesh,
 project onto the divergence-free subspace (P_ij = delta_ij -
 k_i k_j / k^2, the reference's turbGen/Kmesh algebra), inverse FFT.

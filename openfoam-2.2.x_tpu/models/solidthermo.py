@@ -1,7 +1,7 @@
 """solidThermo — solid-region thermophysical property library.
 
 Rebuilds the reference's solid thermo stack
-(src/thermophysicalModels/solidThermo/ + solidSpecie/) the TPU way:
+(src/thermophysicalModels/solidThermo/ + solidSpecie/) the whole-array way:
 each model is a pure function T -> property evaluated per cell at
 trace time, so variable-property conduction stays one fused XLA
 program. Supported menu (reference: solidThermo/solidThermo.C RTS

@@ -2,7 +2,7 @@
 
 Reference: src/thermophysicalModels/{specie,basic}/ — the
 EOS/thermo/transport template layering (perfectGas + hConst/eConst +
-const/sutherland transport composed into psiThermo/rhoThermo). TPU
+const/sutherland transport composed into psiThermo/rhoThermo). This
 rebuild: a small dataclass of constants + pure functions; the template
 tower collapses to plain composition.
 """

@@ -2,7 +2,7 @@
 
 Reference: src/turbulenceModels/incompressible/{turbulenceModel,RAS,LES}
 — the `turbulenceModel::New` RTS factory, the `divDevReff(U)` momentum
-coupling and the per-step `correct()`. TPU design: a model is a static
+coupling and the per-step `correct()`. Design: a model is a static
 config object whose methods are pure jit-traceable functions over
 (mesh, tstate, U, phi); its fields (k, epsilon/omega, nut, ...) live in
 the solver state pytree under 'turb'.

@@ -8,9 +8,9 @@ Reference: src/turbulenceModels/incompressible/LES/
 plus the simpleFilter (src/turbulenceModels/LES/LESfilters/
 simpleFilter/) used as the test filter.
 
-TPU notes: the test filter is the face-area-weighted neighbour average
+Design notes: the test filter is the face-area-weighted neighbour average
 assembled on the slot tables (gather-free on the structured interior);
-the Germano contractions are pure VPU elementwise work, and the
+the Germano contractions are pure elementwise work, and the
 homogeneous (volume-averaged) coefficient needs one global reduction —
 a psum under GSPMD sharding.
 """

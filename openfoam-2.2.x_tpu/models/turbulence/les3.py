@@ -9,7 +9,7 @@ fmm ~ <M:M> with a relaxation time T = theta delta (flm fmm)^{-1/8}:
     ddt(fmm) + div(phi, fmm) == invT (M:M - fmm)
     cD = flm / fmm,   nuSgs = cD delta^2 |S|
 
-TPU notes: the same simple_filter / Germano tensors as the
+Design notes: the same simple_filter / Germano tensors as the
 homogeneous dynamic model (les2.py); the two transport equations are
 solved implicitly with the shared multi-RHS Krylov path — both share
 one upwind convection matrix (identical operator, two right-hand

@@ -8,7 +8,7 @@ Reference: src/turbulenceModels/incompressible/LES/
   - LRDDiffStress/       (SGS stress transport with the LRR
                           rapid pressure-strain term added)
 
-TPU design notes: the stress-transport models ride the same
+Design notes: the stress-transport models ride the same
 [nC,6] symmetric-tensor multi-RHS solve the RAS Reynolds-stress
 models use (one matrix, six right-hand sides — ras2.LRR), with the
 dissipation closed algebraically at the subgrid scale

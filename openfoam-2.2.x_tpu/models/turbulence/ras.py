@@ -5,7 +5,7 @@ RNGkEpsilon, realizableKE, kOmega, kOmegaSST, plus the wall-function
 fvPatchFields (nutkWallFunction, epsilonWallFunction, omegaWallFunction,
 kqRWallFunction in RAS/derivedFvPatchFields/wallFunctions/).
 
-TPU treatment of wall functions: the reference's matrix row
+Treatment of wall functions: the reference's matrix row
 manipulation becomes a diagonal-penalty constraint on the wall-adjacent
 cells (FvMatrix.set_values); nut wall values are recomputed each step
 from the log law through the BC update registry. All formulas are the

@@ -9,11 +9,11 @@ Reference: src/turbulenceModels/incompressible/RAS/
   - LaunderGibsonRSTM/ (LRR + Gibson-Launder wall reflection)
   - kOmegaSSTSAS/     (Menter-Egorov scale-adaptive SST)
 
-TPU design notes: the Reynolds-stress models transport R as a single
+Design notes: the Reynolds-stress models transport R as a single
 [nC, 6] symmetric-tensor field solved with the multi-RHS Krylov path
 (one matrix, six right-hand sides — the same mechanism the segregated
 fvVectorMatrix solve uses), so an RSTM step costs barely more than a
-k-epsilon step on the MXU/VPU. All damping functions are standard
+k-epsilon step in elementwise arithmetic. All damping functions are standard
 published closures (Lam & Bremhorst 1981; Gibson & Dafa'Alla 1995;
 Lien & Kalitzin 2001; Launder, Reece & Rodi 1975; Gibson & Launder
 1978; Menter & Egorov 2010).

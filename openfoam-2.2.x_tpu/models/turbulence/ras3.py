@@ -4,8 +4,8 @@ Reference: src/turbulenceModels/incompressible/RAS/NonlinearKEShih/
 (Shih, Zhu & Lumley quadratic k-epsilon). The cubic LienCubicKE family
 shares the same machinery but is NOT implemented — documented gap.
 
-TPU notes: the nonlinear stress is an elementwise [nC,3,3] expression
-of grad(U) (pure VPU work); its divergence rides the same slot-table
+Design notes: the nonlinear stress is an elementwise [nC,3,3] expression
+of grad(U) (pure elementwise work); its divergence rides the same slot-table
 tensor-divergence used by the Reynolds-stress-transport models
 (ras2._div_symm_tensor). The variable Cmu and the nonlinear stress are
 evaluated from the previous iteration's k/epsilon (one-iteration lag;

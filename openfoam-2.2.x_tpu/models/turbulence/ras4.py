@@ -10,10 +10,10 @@ Reference: src/turbulenceModels/incompressible/RAS/
 and src/turbulenceModels/incompressible/LES/SpalartAllmarasIDDES/
 (Shur, Spalart, Strelets & Travin 2008).
 
-TPU design notes: the cubic terms of the Lien model that are
+Design notes: the cubic terms of the Lien model that are
 proportional to S enter as a strain/vorticity-dependent effective
-viscosity (the reference's `C5viscosity_` field) — on the TPU this is
-a per-cell VPU expression folded into the nut update, so the cubic
+viscosity (the reference's `C5viscosity_` field) — here this is
+a per-cell expression folded into the nut update, so the cubic
 model costs the same as the quadratic one. The quadratic stress
 divergence rides the slot-table symmetric-tensor divergence
 (ras2._div_symm_tensor). IDDES's blending functions are elementwise

@@ -8,8 +8,8 @@ modes in the pre-transitional boundary layer), and the specific
 dissipation rate omega; bypass and natural transition are modelled by
 transfer terms R_BP/R_NAT that move energy from kL to kT.
 
-TPU design notes: all ~15 damping/transition functions are elementwise
-VPU expressions over (kT, kL, omega, |S|, |Omega|, y); the three
+Design notes: all ~15 damping/transition functions are elementwise
+expressions over (kT, kL, omega, |S|, |Omega|, y); the three
 transport equations ride the shared slot-form transport assembly
 (ras._transport_ops) and Krylov path. The wall distance is the static
 KD-tree field (mesh/walldist.py). Model constants are the published

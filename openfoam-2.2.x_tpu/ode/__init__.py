@@ -2,18 +2,18 @@
 
 Rebuild of reference: src/ODE/ (ODESolver run-time selection table:
 Euler, RKF45, rodas23/rodas34 (Rosenbrock), seulex, SIBS), used by
-chemistry integration. TPU redesign:
+chemistry integration. Redesign:
 
 - Systems are jnp vectors; the derivative is a pure function
   f(t, y) -> dy/dt.  Everything integrates inside ONE
   `lax.while_loop`, so a batch of systems (one per cell, as chemistry
-  needs) runs as `jax.vmap(integrate)` at full VPU width — the
+  needs) runs as `jax.vmap(integrate)` at full vector width — the
   reference's per-cell sequential loop becomes a single fused kernel.
 - Adaptive non-stiff: Dormand-Prince 5(4) ("RKF45", "RKCK45", "RKDP45"
   all dispatch here — same family, identical tolerance semantics).
 - Stiff: Rosenbrock 3(2) (rodas23 equivalent) with the Jacobian from
   `jax.jacfwd` and dense `jnp.linalg.solve` stage solves — chemistry
-  systems are small (nSpecies ~ 10-50), so the MXU-batched dense solve
+  systems are small (nSpecies ~ 10-50), so the batched dense solve
   beats any sparse path.
 - "SIBS"/"seulex": real semi-implicit Bulirsch-Stoer — Bader-Deuflhard
   semi-implicit midpoint with static Bader substep sequence and Neville

@@ -60,7 +60,7 @@ class FvMatrix:
     # flat LDU off-diagonals. None = "not materialised": the slot form
     # (soff/sfb) carries the coefficients and no flat [nIf] arrays are
     # ever built — this removes the slot->flat extraction gather
-    # (ops/slot.py::to_flat, ~2 ms per call at 160k cells on v5e) from
+    # (ops/slot.py::to_flat) from
     # the hot path. Methods that genuinely need per-face coefficients
     # (flux, off_coeffs) require them and raise otherwise.
     lower: Any      # [nIf] or None

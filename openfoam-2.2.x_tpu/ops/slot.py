@@ -1,19 +1,18 @@
-"""Slot-form FV primitives — the gather-free TPU hot path.
+"""Slot-form FV primitives — the gather-free hot path.
 
-TPU gathers/scatters are index-rate bound (~150M indices/s measured on
-v5e through XLA): every flat-face gather of a 100k+ cell mesh costs
-milliseconds, and a PISO step has ~25 of them. This module re-expresses
-the two FV motions (cell->face interpolation, face->cell integration)
-on the OFFSET-CANONICAL slot layout already used by the SpMV
-(mesh/core.py::offset_stencil):
+A PISO step has ~25 flat-face gathers and scatters; each reads through
+an index array, and a scatter with repeated indices serialises on its
+conflicts. This module re-expresses the two FV motions (cell->face
+interpolation, face->cell integration) on the OFFSET-CANONICAL slot
+layout already used by the SpMV (mesh/core.py::offset_stencil):
 
   a face quantity lives at [nC, M] — slot (c, m) holds the value of the
   face between cell c and cell c + d_m (so each internal face is stored
   once per side); the irregular remainder lives in the COO fallback
   [nfb]; boundary faces stay flat [nBf] (small).
 
-Neighbour access c -> c + d_m is jnp.roll — full VPU bandwidth, zero
-index traffic. The reference's equivalent locality device is
+Neighbour access c -> c + d_m is jnp.roll — a contiguous shifted read,
+zero index traffic. The reference's equivalent locality device is
 CuthillMcKee renumbering for cache reuse (reference: src/renumber/);
 here the renumbered offsets ARE the addressing.
 

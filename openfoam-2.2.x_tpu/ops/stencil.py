@@ -5,9 +5,10 @@ the matrix-vector product
 
     Apsi[c] = diag[c]*psi[c] + sum_m off[c,m] * psi[c + d_m]  (+ fallback)
 
-uses jnp.roll for the constant offsets d_m (pure VPU, bandwidth-bound —
-measured ~5-30x faster than XLA gather on TPU for FV-sized meshes) and
-a small COO gather/scatter for the unstructured remainder.
+uses jnp.roll for the constant offsets d_m and a small COO gather/
+scatter for the unstructured remainder. XLA fuses the shifted reads,
+the coefficient multiply-adds and the diagonal into one elementwise
+pass over diag, psi, off and the result.
 
 `off` is materialised once per solve (outside the Krylov while_loop)
 from the LDU upper/lower arrays; each solver iteration is then
@@ -16,21 +17,9 @@ gather-free.
 
 from __future__ import annotations
 
-import os
-from typing import Any, Callable, NamedTuple, Tuple
+from typing import Any, NamedTuple, Tuple
 
-import jax
 import jax.numpy as jnp
-
-# Pallas fused-SpMV dispatch: ON by default on TPU for 1-D operands at
-# >= _PALLAS_MIN cells (where the fused kernel beats the jnp.roll chain
-# — see BASELINE.md r4 microbench); FOAMTPU_PALLAS=0 opts out.
-_PALLAS_MIN = int(os.environ.get("FOAMTPU_PALLAS_MIN", "4096"))
-
-
-def _pallas_on() -> bool:
-    return (os.environ.get("FOAMTPU_PALLAS", "1") not in ("0", "false")
-            and jax.default_backend() == "tpu")
 
 
 class StencilOp(NamedTuple):
@@ -54,38 +43,10 @@ class StencilOp(NamedTuple):
             acc = acc.at[self.fb_cells].add(contrib)
         return acc
 
-    def apply_off_t(self, psi: Any) -> Any:
-        """offdiag @ psi for a TRANSPOSED multi-RHS operand [C, nC]
-        (components leading, cells minor). Keeping cells on the minor
-        axis matches the [nC,C] row-major tiling, so the transposes at
-        the solve boundary compile to layout bitcasts instead of the
-        4-way sliced DMA transpose XLA otherwise inserts between the
-        scan carry and the solver while_loop (measured ~2.5 ms/step on
-        cavity 400^2, r5 trace)."""
-        acc = jnp.zeros_like(psi)
-        for m, d in enumerate(self.deltas):
-            shifted = jnp.roll(psi, -d, axis=-1)
-            acc = acc + self.off[:, m][None, :] * shifted
-        if self.fb_cells.shape[0]:
-            acc = acc.at[:, self.fb_cells].add(
-                self.fb_coeffs[None, :] * psi[:, self.fb_nbrs])
-        return acc
-
     def matvec(self, diag: Any, psi: Any) -> Any:
-        """diag*psi + offdiag@psi — THE hot motion of every Krylov/
-        smoother iteration. Dispatches to the Pallas fused kernel
-        (ops/pallas_spmv.py: one VMEM pass, no lane relayouts) on TPU;
-        falls back to the jnp.roll chain elsewhere. Reference hot path:
-        lduMatrix::Amul (src/OpenFOAM/matrices/lduMatrix/)."""
-        if (psi.ndim == 1 and psi.shape[0] >= _PALLAS_MIN
-                and self.deltas and _pallas_on()):
-            from . import pallas_spmv
-
-            acc = pallas_spmv.spmv_fused(diag, psi, self.off, self.deltas)
-            if self.fb_cells.shape[0]:
-                acc = acc.at[self.fb_cells].add(
-                    self.fb_coeffs * psi[self.fb_nbrs])
-            return acc
+        """diag*psi + offdiag@psi — the hot motion of every Krylov/
+        smoother iteration (reference: lduMatrix::Amul,
+        src/OpenFOAM/matrices/lduMatrix/)."""
         return diag * psi + self.apply_off(psi)
 
 
@@ -111,12 +72,3 @@ def mesh_stencil(mesh, upper: Any, lower: Any) -> StencilOp:
         mesh.fb_cells, mesh.fb_faces, mesh.fb_signs, mesh.fb_nbrs,
         upper, lower,
     )
-
-
-def make_amul(st: StencilOp, diag_eff: Any) -> Callable:
-    vec = diag_eff.ndim == 2
-
-    def amul(psi: Any) -> Any:
-        return diag_eff * psi + st.apply_off(psi)
-
-    return amul

@@ -1,4 +1,4 @@
-"""Gather-based surface primitives — the TPU hot-path substrate.
+"""Gather-based surface primitives — the hot-path substrate.
 
 Everything in the FV method reduces to two motions:
   (1) cell -> face: interpolate cell values to faces (gather owner +
@@ -8,7 +8,7 @@ Everything in the FV method reduces to two motions:
       src/finiteVolume/finiteVolume/fvc/fvcSurfaceIntegrate.C).
 
 The reference does (2) with a sequential scatter over owner/neighbour.
-On TPU we instead gather via the precomputed per-cell face tables
+Here we instead gather via the precomputed per-cell face tables
 (mesh.cface [nC,K]) and reduce over the small K axis — dense, fusible,
 no scatters. XLA fuses the gather + multiply + reduce into one pass.
 """
@@ -25,27 +25,10 @@ def gather_faces(mesh, face_vals: Any) -> Any:
     return face_vals[mesh.cface]
 
 
-def scatter_add_cols(acc: Any, idx: Any, vals: Any) -> Any:
-    """Layout-neutral scatter-add: acc[idx] += vals, component-wise.
-
-    A TPU scatter whose operand is [nC,C] pins the WHOLE accumulator to
-    row-major {1,0}; the PISO scan carries vector fields in XLA's
-    preferred {0,1}, so every boundary scatter-add bought 4-way sliced
-    relayout DMAs of f32[nC,3] (~3x3.2 ms/step at 400^2, xplane r5
-    profile). Scattering each component into its own 1D [nC] slice
-    leaves XLA free to keep {0,1} everywhere: the column slice and the
-    stack are contiguous moves under that layout, and a 1D scatter has
-    no layout freedom to constrain."""
-    if acc.ndim == 1:
-        return acc.at[idx].add(vals)
-    a2 = acc.reshape(acc.shape[0], -1)
-    v2 = vals.reshape(vals.shape[0], -1)
-    cols = [a2[:, j].at[idx].add(v2[:, j]) for j in range(a2.shape[1])]
-    return jnp.stack(cols, axis=1).reshape(acc.shape)
-
-
 def scatter_set_cols(acc: Any, idx: Any, vals: Any) -> Any:
-    """Layout-neutral scatter-set twin of scatter_add_cols."""
+    """acc[idx] = vals, one component column at a time: a 1-D scatter
+    has no layout to constrain, so a vector accumulator keeps whichever
+    layout XLA prefers for it."""
     if acc.ndim == 1:
         return acc.at[idx].set(vals)
     a2 = acc.reshape(acc.shape[0], -1)
@@ -68,13 +51,9 @@ def boundary_sum(mesh, bvals: Any) -> Any:
     """Sum per-boundary-face values [nBf,(3)] into their owner cells.
     Compact scatter over ACTIVE boundary faces only (mesh.ab_rel):
     empty-patch faces — 2*nC of them on a 2D case — always carry zero
-    (face_active-masked upstream), and scattering them costs ms at
-    scale (TPU scatters are index-rate bound at ~150M idx/s)."""
+    (face_active-masked upstream), so scattering them is wasted work."""
     shape = (mesh.n_cells,) if bvals.ndim == 1 else (mesh.n_cells, bvals.shape[1])
     out = jnp.zeros(shape, dtype=bvals.dtype)
-    import os
-    if os.environ.get("FOAMTPU_SCATTER_COLS") == "1":
-        return scatter_add_cols(out, mesh.ab_owner, bvals[mesh.ab_rel])
     return out.at[mesh.ab_owner].add(bvals[mesh.ab_rel])
 
 
@@ -82,8 +61,7 @@ def owner_to_b(mesh, x: Any) -> Any:
     """Owner-cell values extrapolated to the boundary, [nBf(,C)]:
     active faces get x[owner]; empty-patch faces get zero (they are
     face_active-masked by every consumer). The compact twin of
-    x[mesh.owner[nif:]] — a full [nBf] gather costs ~2.4 ms at 400^2,
-    this costs ~0.2 ms."""
+    x[mesh.owner[nif:]]: it touches active boundary faces only."""
     nBf = mesh.n_faces - mesh.n_internal_faces
     z = jnp.zeros((nBf,) + x.shape[1:], x.dtype)
     return scatter_set_cols(z, mesh.ab_rel, x[mesh.ab_owner])

@@ -7,7 +7,7 @@ transfer lists and exchanged point-to-point; each particle always
 lives with the processor that owns its cell (SURVEY.md §2b "bucketed
 all_to_all"; VERDICT r4 missing #5).
 
-TPU redesign (shard_map over the same 'space' device axis the fields
+Redesign (shard_map over the same 'space' device axis the fields
 use):
 
 - The STATIC geometry tables (cface/csign/sf/cf/cnbr — a few MB) are

@@ -1,11 +1,11 @@
-"""Explicit communication verbs — the Pstream facade, TPU-native.
+"""Explicit communication verbs — the Pstream facade.
 
 Rebuild of reference: src/OpenFOAM/db/IOstreams/Pstreams/ (UPstream:
 reduce/gather/scatter; PstreamBuffers: neighbour exchange) and
-src/Pstream/mpi/ (the MPI backend). The TPU equivalents are XLA
+src/Pstream/mpi/ (the MPI backend). The equivalents here are XLA
 collectives over a jax.sharding.Mesh axis, used inside shard_map:
 
-    reduce(x, sumOp)        -> psum        (ICI allreduce)
+    reduce(x, sumOp)        -> psum        (NCCL allreduce)
     reduce(x, maxOp/minOp)  -> pmax/pmin
     gatherList/scatter      -> all_gather
     processor-patch halo    -> ppermute neighbour exchange

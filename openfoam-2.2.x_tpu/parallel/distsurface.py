@@ -2,11 +2,11 @@
 
 Rebuild of reference: src/parallel/distributed/distributedTriSurfaceMesh
 (each rank holds a slice of the surface; nearest/inside queries reduce
-across ranks). TPU redesign: the triangle array is sharded over the
+across ranks). Redesign: the triangle array is sharded over the
 device mesh's cell axis; every device evaluates ALL query points
 against ITS triangle shard inside shard_map, and the per-device
 partial results combine with `pmin` (nearest distance) and `psum`
-(winding number) over ICI — no point-to-rank routing, no
+(winding number) over the device interconnect — no point-to-rank routing, no
 communication schedule, just two collectives.
 """
 

@@ -1,7 +1,7 @@
 """Ensemble (batched-case) execution: vmap one solver step over N
 case replicas sharing a mesh.
 
-TPU-native capability with NO reference equivalent: the whole
+Capability with NO reference equivalent: the whole
 finite-volume step — matrix assembly, Krylov/GAMG solves, MULES — is
 a pure jit-traceable function of the state pytree, so `jax.vmap`
 turns it into an N-member ensemble whose members run in lockstep on

@@ -2,7 +2,7 @@
 
 The reference's ONLY parallel strategy is SPMD domain decomposition of
 the mesh with halo exchange over MPI (reference: src/Pstream/mpi/,
-decomposePar, processorFvPatchField — SURVEY.md §2b). The TPU-native
+decomposePar, processorFvPatchField — SURVEY.md §2b). The accelerator
 equivalent implemented here:
 
 - Cells (and faces) stay GLOBAL, padded arrays; a `jax.sharding.Mesh`
@@ -12,11 +12,11 @@ equivalent implemented here:
   compact cell block and cross-shard faces are few.
 - XLA GSPMD inserts the collectives: the cell->cell gathers at shard
   boundaries become the halo exchange, reductions become psums over
-  ICI. This is the "let the compiler insert collectives" recipe; the
-  explicit shard_map + ppermute halo kernel is the planned next
-  optimisation (per-shard local indices + ragged halo buckets).
+  the interconnect. This is the "let the compiler insert collectives"
+  recipe; the explicit shard_map + ppermute halo kernel is the planned
+  next optimisation (per-shard local indices + ragged halo buckets).
 
-Works identically on a real TPU pod slice and on
+Works identically on a multi-GPU host and on
 XLA_FLAGS=--xla_force_host_platform_device_count=N CPU meshes (the
 analogue of the reference's mpirun-on-one-box testing).
 """
@@ -69,18 +69,24 @@ def active_halo_mesh():
     return _HALO_JMESH, _HALO_AXIS
 
 
-def shard_case(mesh, state: Dict, jmesh: Mesh, axis: str = "space"):
-    """Place an FvMesh + solver state over the device mesh.
-
-    FOAMTPU_HALO=explicit additionally arms the explicit halo-exchange
-    SpMV for subsequent solver traces (the latency-optimal path on real
-    multi-chip ICI; equal results to GSPMD by construction, asserted in
-    tests/test_halo_production.py)."""
+def arm_halo(jmesh: Mesh, axis: str = "space") -> None:
+    """Arm the explicit halo-exchange SpMV for later solver traces when
+    FOAMTPU_HALO=explicit (shard_case and `run -parallel`)."""
     import os as _os
 
     global _HALO_JMESH, _HALO_AXIS
     if _os.environ.get("FOAMTPU_HALO", "") == "explicit":
         _HALO_JMESH, _HALO_AXIS = jmesh, axis
+
+
+def shard_case(mesh, state: Dict, jmesh: Mesh, axis: str = "space"):
+    """Place an FvMesh + solver state over the device mesh.
+
+    FOAMTPU_HALO=explicit additionally arms the explicit halo-exchange
+    SpMV for subsequent solver traces (the latency-optimal path on a real
+    multi-GPU interconnect; equal results to GSPMD by construction,
+    asserted in tests/test_halo_production.py)."""
+    arm_halo(jmesh, axis)
     nc, nf = mesh.n_cells, mesh.n_faces
     return (
         shard_pytree(mesh, jmesh, nc, nf, axis),

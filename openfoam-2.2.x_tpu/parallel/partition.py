@@ -1,7 +1,7 @@
 """Mesh partitioning (decomposePar equivalent).
 
 Reference: src/parallel/decompose/ — decompositionMethod with
-simple/hierarchical/scotch backends. On TPU there are no processor
+simple/hierarchical/scotch backends. On an accelerator there are no processor
 directories: partitioning is a host-side cell REORDERING so each chip's
 contiguous block of the global arrays is spatially compact, then GSPMD
 shards the cell dimension (parallel/gspmd.py). Geometric recursive

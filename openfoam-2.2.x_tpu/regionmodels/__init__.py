@@ -10,10 +10,10 @@ Rebuild of reference: src/regionModels/
   - pyrolysisModels/reactingOneDim (pyrolysis.py — in-depth 1D solid
     columns under every wall face, vmapped)
 
-TPU design: region state is a small pytree of [nFace(,k)] arrays; the
+Design: region state is a small pytree of [nFace(,k)] arrays; the
 film step is explicit upwind surface-FV (edge scatters over a few
 thousand faces — negligible next to the primary solve), the pyrolysis
-step is a vmapped 1D column integration (pure VPU work).
+step is a vmapped 1D column integration (pure elementwise work).
 """
 
 from .filmmesh import FilmMesh, build_film_mesh

@@ -13,7 +13,7 @@ Formulation (depth-integrated laminar film, Nusselt velocity profile):
     gravity      g_t   = g - n (n.g)         (tangential component)
 so a draining film reaches U_inf = g_t delta^2 / (3 nu).
 
-TPU design: explicit upwind edge fluxes with scatter-adds over the
+Design: explicit upwind edge fluxes with scatter-adds over the
 film mesh (a few-thousand-face region — host-trivial next to the
 primary solve); the whole step is one fused device program, safe to
 call inside the primary solver's jitted step. Evaporation is a

@@ -11,7 +11,7 @@ Formulation, per wall face (a column of nL layers, z into the solid):
     d(rho_s)/dt = -A exp(-Ta/T) (rho_s - rho_char)
     m_gas [kg/m^2/s] = sum_layers -d(rho_s)/dt * dz
 
-TPU design: columns are a [nF, nL] array advanced with an explicit
+Design: columns are a [nF, nL] array advanced with an explicit
 scheme subcycled inside lax.scan — all faces integrate as one fused
 device program (the reference loops region cells through its fvMesh).
 Pyrolysis heat sink (endothermic Qr) is folded in via cfg.h_pyro.

@@ -22,7 +22,7 @@ patches, zeroGradient elsewhere; pa zeroGradient except fixedValue 0
 where p is value-fixed — the reference's adjointOutletVelocity/
 Pressure BCs linearise the same conditions.
 
-TPU design: the primal and adjoint SIMPLE iterations run as ONE jitted
+Design: the primal and adjoint SIMPLE iterations run as ONE jitted
 program per optimization sweep — the adjoint matrix reuses the primal
 assembly machinery with the flux sign flipped.
 """

@@ -2690,7 +2690,7 @@ def _engine_foam_layered(case, max_steps: Optional[int],
     polyTopoChange/polyTopoChanger/layerAdditionRemoval driven by
     src/engine/engineMesh, selected by engineGeometry `pistonLayers`).
 
-    TPU structure: each topology is one jitted chunk; when the piston
+    Structure: each topology is one jitted chunk; when the piston
     layer passes the 0.5/1.5 x pistonLayers thickness bounds the mesh
     is re-extruded on the host (mesh/topo.py), rho/momentum/energy are
     remapped through the exact conservative slab-overlap matrix, and
@@ -3913,7 +3913,7 @@ def _pimple_attach_detach(case, dmd, max_steps: Optional[int]) -> None:
     internal faces detaches into a wall pair at detachTime and
     re-attaches at attachTime).
 
-    TPU structure (same re-trace-on-topo-event strategy as layering/
+    Structure (same re-trace-on-topo-event strategy as layering/
     AMR, mesh/topo.py): the two topologies share IDENTICAL cells (only
     the face list differs), so the field remap across an event is the
     identity — exactly conservative; the flux is re-derived from U on

@@ -7,7 +7,7 @@ turbulentTemperatureCoupledBaffleMixed interface BC
 (src/turbulenceModels/compressible/turbulenceModel/derivedFvPatchFields/
 temperatureCoupledBase + ...CoupledBaffleMixed).
 
-TPU redesign: each region is its own Case/mesh/jitted step; the
+Redesign: each region is its own Case/mesh/jitted step; the
 interface coupling is a per-outer-iteration HOST exchange of mixed-BC
 data (refValue = neighbour face temperature, valueFraction from the
 kappa*delta ratio — the reference's formula), with the face-to-face

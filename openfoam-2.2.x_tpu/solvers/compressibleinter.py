@@ -9,7 +9,7 @@ contributions). Phase EOS as in the depthCharge tutorials:
   air   (phase 1): perfectGas      rho1 = psi1 p,        psi1 = 1/(R1 T)
   water (phase 2): perfectFluid    rho2 = rho0 + psi2 p, psi2 = 1/(R2 T)
 
-TPU design: one jitted step; alpha MULES + compression on the flat
+Design: one jitted step; alpha MULES + compression on the flat
 face layout (shared with interFoam), pressure equation with the
 implicit mixture-compressibility ddt term
 

@@ -4,7 +4,7 @@ pyrolysing fuel surfaces and a suppressing water film.
 Rebuild of reference: applications/solvers/combustion/fireFoam/
 (YEqn.H/hsEqn.H with infinitelyFastChemistry and the surfaceFilm /
 pyrolysis region coupling of the reactingParcelFilmFoam family).
-Operator-split TPU step:
+Operator-split step:
 
   1. flow: buoyantPimpleFoam compressible buoyant step
      (solvers/buoyantrho.py, incl. optional P1 radiation)

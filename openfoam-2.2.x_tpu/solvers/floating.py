@@ -6,7 +6,7 @@ the flow's pressure+viscous forces on a body patch drive
 sixDoFRigidBodyMotion::update, the mesh deforms with the body, and
 the flow sees the motion through the ALE relative flux.
 
-TPU design:
+Design:
 - The body state (models/sixdof.py symplectic quaternion integrator)
   lives in the jitted step's state pytree; forces come from the same
   patch-force kernel the forces functionObject uses.

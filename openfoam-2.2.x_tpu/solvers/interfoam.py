@@ -303,7 +303,7 @@ def lts_interfoam_step(mesh, state, dt_unused, cfg: InterConfig):
 # ---------------------------------------------------------------------------
 # interDyMFoam: interFoam on a (solid-body) moving mesh
 # (reference: applications/solvers/multiphase/interFoam/interDyMFoam/ —
-#  mesh.update(); fvc::makeRelative(phi, U); the TPU design recomputes
+#  mesh.update(); fvc::makeRelative(phi, U); this design recomputes
 #  the geometry on device each step, mesh/moving.py, and carries the
 #  RELATIVE flux so makeRelative/makeAbsolute collapse to one
 #  subtraction. Rigid motions keep cell volumes exact, so the space

@@ -7,7 +7,7 @@ phases 2 and 3 are miscible liquids exchanging by Fickian diffusion
 with the composite diffusivity Dab + alphaDiffusion inside the liquid
 region (reference: alphaEqns.H's D23 term).
 
-TPU design: alpha1 runs the same MULES compression kernel as interFoam
+Design: alpha1 runs the same MULES compression kernel as interFoam
 (interfoam.alpha_step); alpha2 advects with an upwind bounded flux and
 an explicit D23 laplacian, then alpha3 = 1 - alpha1 - alpha2 (exactly
 as the reference closes the triple). Mixture rho/mu are 3-phase

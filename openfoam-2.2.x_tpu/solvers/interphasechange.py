@@ -17,7 +17,7 @@ the pressure equation carries it implicitly as
 which is the reference's cavitation-closure regularisation of the
 incompressible pEqn.
 
-TPU design: same slot/MULES machinery as interfoam.py; the phase
+Design: same slot/MULES machinery as interfoam.py; the phase
 change adds only elementwise terms, so the whole step stays one jitted
 program.
 """

@@ -116,7 +116,7 @@ def solve(mesh, mat, psi: Any, controls: Dict) -> Tuple[Any, SolverPerf]:
     # FOAMTPU_HALO=explicit (armed by gspmd.shard_case): the fine-level
     # off-diagonal SpMV runs as a shard_map ppermute halo kernel instead
     # of GSPMD-partitioned rolls — the reference's processor-patch
-    # send/recv seam, latency-optimal on real ICI. Only the pure
+    # send/recv seam, latency-optimal on a real interconnect. Only the pure
     # offset-stencil case qualifies (COO fallback/AMI keep GSPMD).
     from ...parallel import gspmd as _gspmd
 
@@ -162,7 +162,7 @@ def solve(mesh, mat, psi: Any, controls: Dict) -> Tuple[Any, SolverPerf]:
                 row_abs = row_abs[:, None]
             kw["lam_max"] = jnp.max(1.0 + row_abs / jnp.abs(d_for_lam))
         else:
-            # sequential Gauss-Seidel has no TPU twin and plain Jacobi
+            # sequential Gauss-Seidel has no parallel twin and plain Jacobi
             # cannot be Chebyshev-accelerated on a convection-bearing
             # (complex-spectrum) matrix — dispatch to Jacobi-
             # preconditioned BiCGStab, converging to the same
@@ -186,32 +186,6 @@ def solve(mesh, mat, psi: Any, controls: Dict) -> Tuple[Any, SolverPerf]:
     # (identical per-component math; 3x fewer sequential solves)
     d = mat.diag_eff(mesh)        # [nC,C] (per-component boundary coeffs)
     b = mat.source_eff(mesh)      # [nC,C]
-
-    # TRANSPOSED multi-RHS layout [C,nC] (FOAMTPU_TSOLVE=1, opt-in):
-    # cells stay on the minor axis. Bitwise-identical results and
-    # identical iteration counts to the legacy layout; measured
-    # perf-NEUTRAL on cavity 400^2 (the {0,1}<->{1,0} relayout DMA seen
-    # in the r5 xplane trace comes from the scan-carry/assembly
-    # boundary, not the solver), kept as the experiment knob for other
-    # shapes. AMI interfaces always use the legacy path (their COO
-    # wrapper indexes the leading axis).
-    import os as _os
-
-    transposed = (_os.environ.get("FOAMTPU_TSOLVE", "0")
-                  not in ("0", "false")
-                  and fn in (krylov.pcg, krylov.bicgstab)
-                  and d.ndim == 2 and psi.ndim == 2
-                  and apply_off is base_off)
-    if transposed:
-        dT, bT, xT = d.T, b.T, psi.T
-
-        def amul_t(x):
-            return dT * x + st.apply_off_t(x)
-
-        xt, perf = fn(amul_t, xT, bT, dT,
-                      row_sum=dT + row_off[None, :],
-                      amul_off=st.apply_off_t, cmpt_axis=0, **kw)
-        return xt.T, perf
 
     def amul_v(x):
         return d * x + apply_off(x)

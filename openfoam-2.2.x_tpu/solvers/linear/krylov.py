@@ -8,10 +8,10 @@ normalisation follow the reference exactly so the printed
     normFactor = gSum(|Apsi - pA| + |b - pA|) + SMALL,  pA = sumA*avg(psi)
     residual   = gSum(|b - Apsi|) / normFactor
 
-TPU-design deviations (SURVEY.md §7 decision 4): the sequential
+Design deviations (SURVEY.md §7 decision 4): the sequential
 DIC/DILU preconditioners have no parallel twin, so the preconditioner
 menu is diagonal (Jacobi) and truncated-Neumann "polynomial" (each
-order costs one extra gather-SpMV but runs at full VPU throughput).
+order costs one extra SpMV but runs fully in parallel).
 Gauss-Seidel smoothing is replaced by damped Jacobi. Convergence is to
 the same tolerances; iteration counts differ (documented).
 
@@ -74,33 +74,28 @@ def _unconverged(res, res0, tol, rel_tol, stall):
                    & (stall < STALL_ITERS))
 
 
-def _sum(x, cell_axis=0):
-    """Cell-wise sum: scalar for [nC], per-component [C] for [nC,C]
-    (cell_axis=0) or [C,nC] (cell_axis=1). All solvers below are
-    multi-RHS: a vector equation solves its three components
-    simultaneously in ONE while_loop (per-column alphas/betas
+def _sum(x):
+    """Cell-wise sum: scalar for [nC], per-component [C] for [nC,C].
+    All solvers below are multi-RHS: a vector equation solves its three
+    components simultaneously in ONE while_loop (per-column alphas/betas
     broadcast) — 3x fewer sequential solves than the reference's
-    segregated loop, with identical per-component results. The
-    transposed [C,nC] mode keeps cells on the minor axis so the solve
-    shares the scan carry's row-major tiling (no DMA transposes)."""
-    return jnp.sum(x, axis=cell_axis)
+    segregated loop, with identical per-component results."""
+    return jnp.sum(x, axis=0)
 
 
 def _colwise(x, like):
     return x if like.ndim == 1 else x[None, :]
 
 
-def _norm_factor(amul, psi, b, row_sum, cell_axis=0):
+def _norm_factor(amul, psi, b, row_sum):
     Apsi = amul(psi)
-    avg = jnp.mean(psi, axis=cell_axis)
-    if psi.ndim == 2 and cell_axis == 0:
+    avg = jnp.mean(psi, axis=0)
+    if psi.ndim == 2:
         pA = row_sum[:, None] * avg[None, :] if row_sum.ndim == 1 else row_sum * avg[None, :]
-    elif psi.ndim == 2:  # [C, nC]
-        pA = row_sum[None, :] * avg[:, None] if row_sum.ndim == 1 else row_sum * avg[:, None]
     else:
         pA = row_sum * avg
-    nf = (_sum(jnp.abs(Apsi - pA), cell_axis)
-          + _sum(jnp.abs(b - pA), cell_axis) + _small(psi.dtype))
+    nf = (_sum(jnp.abs(Apsi - pA))
+          + _sum(jnp.abs(b - pA)) + _small(psi.dtype))
     return Apsi, nf
 
 
@@ -137,23 +132,18 @@ def pcg(
     precond: str = "diagonal",
     amul_off=None,
     row_sum=None,
-    cmpt_axis: int = 1,
 ):
-    """Preconditioned conjugate gradient (reference: PCG.C).
-    cmpt_axis=0 solves the TRANSPOSED multi-RHS layout [C, nC]."""
-    ca = 1 - cmpt_axis if psi0.ndim == 2 else 0   # the cells axis
+    """Preconditioned conjugate gradient (reference: PCG.C)."""
     prec = make_preconditioner(precond, diag, amul_off)
-    Apsi, norm = _norm_factor(amul, psi0, b, row_sum, ca)
+    Apsi, norm = _norm_factor(amul, psi0, b, row_sum)
     r0 = b - Apsi
-    res0 = _sum(jnp.abs(r0), ca) / norm
+    res0 = _sum(jnp.abs(r0)) / norm
     dt = psi0.dtype
     tiny = jnp.asarray(_small(dt), dt)
-    cshape = () if psi0.ndim == 1 else (psi0.shape[cmpt_axis],)
+    cshape = () if psi0.ndim == 1 else (psi0.shape[1],)
 
     def bc(x):  # broadcast per-component scalar over cells
-        if psi0.ndim == 1:
-            return x
-        return x[None, :] if cmpt_axis == 1 else x[:, None]
+        return _colwise(x, psi0)
 
     def cond(state):
         psi, r, p, wArA, it, res, best, stall = state
@@ -163,15 +153,15 @@ def pcg(
     def body(state):
         psi, r, p, wArA_old, it, res, best, stall = state
         z = prec(r)
-        wArA = _sum(r * z, ca)
+        wArA = _sum(r * z)
         beta = jnp.where(it == 0, 0.0, wArA / jnp.where(wArA_old == 0, tiny, wArA_old))
         p = z + bc(beta) * p
         q = amul(p)
-        pq = _sum(p * q, ca)
+        pq = _sum(p * q)
         alpha = wArA / jnp.where(pq == 0, tiny, pq)
         psi = psi + bc(alpha) * p
         r = r - bc(alpha) * q
-        res = _sum(jnp.abs(r), ca) / norm
+        res = _sum(jnp.abs(r)) / norm
         best, stall = _stall_update(res, best, stall)
         return psi, r, p, wArA, it + 1, res, best, stall
 
@@ -194,27 +184,22 @@ def bicgstab(
     precond: str = "diagonal",
     amul_off=None,
     row_sum=None,
-    cmpt_axis: int = 1,
 ):
     """Preconditioned BiCGStab for asymmetric matrices (the reference
     ships plain PBiCG — reference: PBiCG.C; BiCGStab is the standard
-    robust upgrade and dispatches from both keywords).
-    cmpt_axis=0 solves the TRANSPOSED multi-RHS layout [C, nC]."""
-    ca = 1 - cmpt_axis if psi0.ndim == 2 else 0
+    robust upgrade and dispatches from both keywords)."""
     prec = make_preconditioner(precond, diag, amul_off)
-    Apsi, norm = _norm_factor(amul, psi0, b, row_sum, ca)
+    Apsi, norm = _norm_factor(amul, psi0, b, row_sum)
     r0 = b - Apsi
-    res0 = _sum(jnp.abs(r0), ca) / norm
+    res0 = _sum(jnp.abs(r0)) / norm
     rhat = r0
     dt = psi0.dtype
     tiny = jnp.asarray(_small(dt), dt)
     zero = jnp.zeros_like(psi0)
-    cshape = () if psi0.ndim == 1 else (psi0.shape[cmpt_axis],)
+    cshape = () if psi0.ndim == 1 else (psi0.shape[1],)
 
     def bcol(x):
-        if psi0.ndim == 1:
-            return x
-        return x[None, :] if cmpt_axis == 1 else x[:, None]
+        return _colwise(x, psi0)
 
     def cond(state):
         psi, r, p, v, rho, alpha, omega, it, res, best, stall = state
@@ -223,7 +208,7 @@ def bicgstab(
 
     def body(state):
         psi, r, p, v, rho_old, alpha, omega, it, res, best, stall = state
-        rho = _sum(rhat * r, ca)
+        rho = _sum(rhat * r)
         beta = (rho / jnp.where(rho_old == 0, tiny, rho_old)) * (
             alpha / jnp.where(omega == 0, tiny, omega)
         )
@@ -231,16 +216,16 @@ def bicgstab(
         p = r + bcol(beta) * (p - bcol(omega) * v)
         phat = prec(p)
         v = amul(phat)
-        rhv = _sum(rhat * v, ca)
+        rhv = _sum(rhat * v)
         alpha = rho / jnp.where(rhv == 0, tiny, rhv)
         s = r - bcol(alpha) * v
         shat = prec(s)
         t = amul(shat)
-        tt = _sum(t * t, ca)
-        omega = _sum(t * s, ca) / jnp.where(tt == 0, tiny, tt)
+        tt = _sum(t * t)
+        omega = _sum(t * s) / jnp.where(tt == 0, tiny, tt)
         psi = psi + bcol(alpha) * phat + bcol(omega) * shat
         r = s - bcol(omega) * t
-        res = _sum(jnp.abs(r), ca) / norm
+        res = _sum(jnp.abs(r)) / norm
         best, stall = _stall_update(res, best, stall)
         return psi, r, p, v, rho, alpha, omega, it + 1, res, best, stall
 
@@ -271,7 +256,7 @@ def smooth_solver(
     """smoothSolver (reference: smoothSolver.C + GaussSeidelSmoother).
 
     The reference's Gauss-Seidel sweep is sequential along the cell
-    ordering — no TPU twin exists. The parallel-equivalent iteration
+    ordering — no parallel twin exists. The parallel-equivalent iteration
     used here is CHEBYSHEV-accelerated Jacobi: each outer iteration runs
     n_sweeps Chebyshev steps on the D^-1 A operator with a Gershgorin
     upper bound (lam_max, supplied by the dispatcher). Chebyshev gives

@@ -29,7 +29,7 @@ Formulation (phases i = 0..nP-1, all incompressible, rho_i const):
     Cd(Re) = 24/Re (1 + 0.15 Re^0.687) for Re < 1000 else 0.44,
     w_i = alpha_i / (alpha_i + alpha_j).
 
-TPU design: nP is static, so the per-phase loops unroll into one
+Design: nP is static, so the per-phase loops unroll into one
 jitted program; each momentum solve is a standard multi-RHS Krylov
 solve and every phase's MULES advection shares the same kernel.
 """

@@ -6,7 +6,7 @@ multiphaseInterFoam/ (multiphaseMixture::solveAlphas — sequential
 per-phase MULES with pairwise compression fluxes, mixture transport,
 pairwise CSF surface tension) on the p_rgh PISO of interFoam.
 
-TPU design: the phase fractions live as one [nC, nP] array; every
+Design: the phase fractions live as one [nC, nP] array; every
 phase's bounded advection and all pairwise compression terms evaluate
 batched; a final renormalisation enforces sum(alpha)=1 (the
 reference's solveAlphas does the same normalisation).

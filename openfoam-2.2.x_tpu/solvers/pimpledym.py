@@ -3,7 +3,7 @@
 
 Rebuild of reference: applications/solvers/incompressible/pimpleFoam/
 pimpleDyMFoam/ (mesh.update(); correctPhi; fvc::makeRelative). The
-TPU design (mesh/moving.py): topology static, geometry recomputed on
+Design (mesh/moving.py): topology static, geometry recomputed on
 device from the motion function each step; the stored face flux is the
 RELATIVE flux phi_rel = phi_abs - meshPhi (meshPhi exact for rigid
 motions), so continuity and convection use it directly and

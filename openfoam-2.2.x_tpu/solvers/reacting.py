@@ -3,7 +3,7 @@ chemistry (laminar combustion model).
 
 Rebuild of reference: applications/solvers/combustion/reactingFoam/
 (YEqn.H, EEqn.H + chemistryModel::solve; combustion model `laminar`).
-Operator-split TPU design per time step:
+Operator-split design per time step:
 
   1. flow step: the rhoPimpleFoam pressure-based compressible step
      (solvers/rhopimple.py) — momentum/energy/pressure on the mass flux

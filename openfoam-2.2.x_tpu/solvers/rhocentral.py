@@ -6,7 +6,7 @@ Reference: applications/solvers/compressible/rhoCentralFoam/
 the semi-discrete KNP/KT schemes of Kurganov et al. (2001) as described
 in Greenshields et al. (IJNMF 2010). Fully explicit — zero linear
 solves in the inviscid path, so every step is pure gather/vector math:
-the most TPU-friendly solver in the suite.
+the most accelerator-friendly solver in the suite.
 
 State: conservative (rho, rhoU, rhoE) cell fields; primitives + BCs
 are reconstructed each step. Face reconstruction is first-order upwind

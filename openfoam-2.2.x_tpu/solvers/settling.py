@@ -15,7 +15,7 @@ Mixture formulation — alpha is the dispersed-phase MASS fraction
     UEqn  : mixture momentum with the drift stress div(Vdj Vdj rho
             alpha) folded into the buoyancy treatment (p_rgh form).
 
-TPU design: flat-face interFoam-style assembly; the drift flux is one
+Design: flat-face interFoam-style assembly; the drift flux is one
 extra elementwise face term. Turbulent Schmidt diffusion uses the
 molecular + plastic viscosity (no k-eps mixture model here —
 documented deviation; the plastic viscosity carries the hindered

@@ -21,7 +21,7 @@ Lamé constants from mechanicalProperties (E, nu, rho; planeStress
 switch rescales lambda). Thermal stress (thermalStress on) adds the
 -threeKalpha*grad(T) coupling — not yet implemented (raises).
 
-TPU design: the whole inner loop is unrolled in ONE jitted step;
+Design: the whole inner loop is unrolled in ONE jitted step;
 sigmaExp face interpolation runs on flat gather ops (cold path, one
 tensor interpolation per iteration)."""
 

@@ -21,7 +21,7 @@ incompressible, rhoa/rhob constant):
   Drag: Schiller-Naumann sphere drag
         K = 0.75 Cd rhob alpha |Ur| / d,  Cd(Re) = 24/Re (1+0.15 Re^.687)
 
-TPU design: one jitted step; both phase momentum solves are standard
+Design: one jitted step; both phase momentum solves are standard
 multi-RHS Krylov solves, alpha uses the shared MULES kernel.
 """
 

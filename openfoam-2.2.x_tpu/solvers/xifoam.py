@@ -17,7 +17,7 @@ Formulation (b = regress variable, 1 = unburnt, 0 = burnt):
   Qdot : the b consumption rate rho_u Su Xi |grad b| releases
          q_comb [J/kg] into T (constant-volume split, p follows rho R T).
 
-TPU design notes / documented deviations: b is advanced operator-split
+Design notes / documented deviations: b is advanced operator-split
 AFTER the PIMPLE pressure loop (the reference solves bEqn inside the
 outer corrector); the flame flux div(phiSt, b) is carried explicitly in
 the |grad b| source rather than as a separate implicit surface flux;

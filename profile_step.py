@@ -2,12 +2,12 @@
 and one SIMPLE iteration (pitzDaily) on the real chip.
 
 Answers "where does the time go" for the driver metric without needing
-TensorBoard: each phase is jitted separately and timed with honest
-host-fetch fences (median of trials). Optionally writes a
+TensorBoard: each phase is jitted separately and timed up to
+jax.block_until_ready (median of trials). Optionally writes a
 jax.profiler trace when FOAMTPU_PROFILE=<dir> is set (same hook the
 run CLI honours).
 
-Run:  python profile_step.py            # one quiet TPU
+Run:  python profile_step.py            # on the GPU
 Output: PROFILE.md-style table on stdout.
 """
 
@@ -18,45 +18,35 @@ import time
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/tmp/foamtpu-jax-cache")
-os.environ.setdefault("JAX_PERSISTENT_CACHE_MIN_COMPILE_TIME_SECS", "1")
-os.environ.setdefault("JAX_PERSISTENT_CACHE_MIN_ENTRY_SIZE_BYTES", "0")
+import jax  # noqa: E402
 
 N = int(os.environ.get("PROF_N", "400"))
 
 
-def fence(x):
-    import jax.numpy as jnp
-
-    return float(jnp.sum(x))
-
-
 def timeit(fn, *args, reps=10, trials=3):
-    out = fn(*args)
-    import jax
-
-    jax.tree_util.tree_map(
-        lambda x: fence(x) if hasattr(x, "dtype") else None, out)
+    jax.block_until_ready(fn(*args))
     ts = []
     for _ in range(trials):
         t0 = time.perf_counter()
         for _ in range(reps):
             out = fn(*args)
-        jax.tree_util.tree_map(
-            lambda x: fence(x) if hasattr(x, "dtype") else None, out)
+        jax.block_until_ready(out)
         ts.append((time.perf_counter() - t0) / reps)
     return statistics.median(ts) * 1e3  # ms
 
 
 def main():
-    import jax
     import jax.numpy as jnp
 
+    from bench import card_line
     from foamtpu.apps.cases import make_cavity
+    from foamtpu.core import compile_cache
     from foamtpu.core.dimensions import dimTime, dimViscosity
     from foamtpu.ops import fvc, fvm, slot as slot_mod
     from foamtpu.solvers import linear, piso
 
+    compile_cache.configure()
+    print(f"card: {card_line()}", flush=True)
     mesh, state, cfg = make_cavity(N, p_solver={
         "solver": "GAMG", "preconditioner": "polynomial",
         "tolerance": 1e-7, "relTol": 0.01, "maxIter": 1000})
@@ -65,7 +55,7 @@ def main():
     # settle the flow so iteration counts are representative
     for _ in range(5):
         state, diag = step(state, dt)
-    fence(state["U"].data)
+    jax.block_until_ready(state["U"].data)
 
     rows = []
     prof_dir = os.environ.get("FOAMTPU_PROFILE")

@@ -39,8 +39,6 @@ def _sharded_body(n_dev: int) -> None:
     import time
 
     import jax
-
-    jax.config.update("jax_platforms", "cpu")
     import jax.numpy as jnp
     import numpy as np
 

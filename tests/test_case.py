@@ -89,3 +89,26 @@ def test_decompose_and_vtk(case_dir):
     assert main(["foamToVTK", "-case", case_dir]) == 0
     vtks = os.listdir(os.path.join(case_dir, "VTK"))
     assert any(v.endswith(".vtk") for v in vtks)
+
+
+def test_vtk_fields_from_long_time_name(tmp_path):
+    """foamToVTK finds the latest time directory by the name the solver
+    wrote (controlDict timePrecision), not a 6-digit reformatting of it."""
+    from foamtpu.apps.cli import main
+
+    case = str(tmp_path / "cavity")
+    shutil.copytree(CAVITY, case)
+    ctl = os.path.join(case, "system", "controlDict")
+    with open(ctl) as f:
+        text = f.read()
+    with open(ctl, "w") as f:
+        f.write(text.replace("timePrecision   6;", "timePrecision   10;"))
+    assert main(["blockMesh", "-case", case]) == 0
+    shutil.copytree(os.path.join(case, "0"),
+                    os.path.join(case, "0.02083333333"))
+    assert main(["foamToVTK", "-case", case]) == 0
+    out = os.path.join(case, "VTK", "cavity_0.02083333333.vtk")
+    with open(out) as f:
+        heads = {ln.split()[1] for ln in f
+                 if ln.startswith(("SCALARS ", "VECTORS "))}
+    assert {"U", "p"} <= heads

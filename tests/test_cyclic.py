@@ -1,6 +1,6 @@
 """Cyclic (periodic) coupled patches — internalised at mesh load
 (reference: src/finiteVolume/fields/fvPatchFields/constraint/cyclic/;
-our TPU design converts translational cyclic pairs into internal faces
+the design here converts translational cyclic pairs into internal faces
 with a recorded separation vector, mesh/core.py::internalize_cyclics)."""
 
 import jax

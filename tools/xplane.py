@@ -103,12 +103,12 @@ def parse(path):
 
 
 def device_op_totals(planes):
-    """Aggregate duration by op name over device (TPU/accelerator)
+    """Aggregate duration by op name over device (accelerator)
     planes' XLA-op lines. Returns {name: total_ps}."""
     tot = defaultdict(int)
     for plane in planes:
         nm = plane["name"]
-        if "TPU" not in nm and "GPU" not in nm and "device" not in nm:
+        if "GPU" not in nm and "device" not in nm:
             continue
         for line in plane["lines"]:
             lname = line.get("display_name") or line["name"]
